@@ -3,7 +3,7 @@ crossover study (benchmarks/walsh.py, walsh_plot.py: 1000 transforms x
 batch 512, D = 2^6..2^11; its finding: vectorized CPU FWHT beats the
 dense matmul from D ~ 2^11, report/performance-testing.tex:16-17).
 
-Times the butterfly FWHT, the MXU Kronecker FWHT, and the dense-H
+Times the butterfly FWHT, the Kronecker-factor FWHT, and the dense-H
 matmul on the current backend with difference-timed on-device chains,
 and reports the measured crossover.
 
@@ -50,13 +50,13 @@ def _write_plot(rows, crossover, path, backend):
     series = [
         ("matmul_us", f"dense H matmul ({backend})", "#888888", "--"),
         ("butterfly_us", "FWHT butterfly", "#2a78d6", "-"),
-        ("kron_us", "FWHT Kronecker/MXU", "#eb6834", "-"),
+        ("kron_us", "FWHT Kronecker factors", "#eb6834", "-"),
     ]
     fig, ax = plt.subplots(figsize=(6, 4))
     for key, label, color, ls in series:
-        # difference timing on remote backends can read <= 0 at tiny D
-        # (latency noise exceeds the compute delta); a log axis cannot
-        # show those — mask them instead of plunging to the clip edge
+        # difference timing can read <= 0 at tiny D (latency noise
+        # exceeds the compute delta); a log axis cannot show those —
+        # mask them instead of plunging to the clip edge
         pts = [(r["D"], r[key]) for r in rows if r[key] > 0]
         ax.plot([p[0] for p in pts], [p[1] for p in pts], label=label,
                 color=color, linestyle=ls, marker="o", markersize=3.5)
@@ -95,22 +95,26 @@ def main():
         "compute-performance-all.pdf counterpart)",
     )
     args = ap.parse_args()
+    sweep(args.batch, args.iters, args.sizes, args.plot)
 
+
+def sweep(batch, iters, sizes, plot=None):
+    """Time the three transforms at each D in ``sizes``, print one JSON
+    row per D and the crossover, and write the chart to ``plot`` if
+    given. Runs in the caller's process (one process per card)."""
     print(f"backend={jax.default_backend()}")
     crossover = None
     rows = []
-    for D in args.sizes:
+    for D in sizes:
         x = jax.jit(
             lambda k, s: jax.random.normal(k, s), static_argnums=1
-        )(jax.random.PRNGKey(0), (args.batch, D))
+        )(jax.random.PRNGKey(0), (batch, D))
         scale = 1.0 / jnp.sqrt(jnp.float32(D))  # keep chains bounded
         H = build_H(D) * scale
 
-        t_matmul = chain_time(lambda v: v @ H, x, args.iters)
-        t_butter = chain_time(
-            lambda v: fwht_butterfly(v) * scale, x, args.iters
-        )
-        t_kron = chain_time(lambda v: fwht_kron(v) * scale, x, args.iters)
+        t_matmul = chain_time(lambda v: v @ H, x, iters)
+        t_butter = chain_time(lambda v: fwht_butterfly(v) * scale, x, iters)
+        t_kron = chain_time(lambda v: fwht_kron(v) * scale, x, iters)
         row = {
             "D": D,
             "matmul_us": round(t_matmul * 1e6, 1),
@@ -122,8 +126,8 @@ def main():
             row["crossover"] = True
         rows.append(row)
         print(json.dumps(row), flush=True)
-    if args.plot:
-        _write_plot(rows, crossover, args.plot, jax.default_backend())
+    if plot:
+        _write_plot(rows, crossover, plot, jax.default_backend())
     print(
         json.dumps(
             {

@@ -11,8 +11,9 @@ script-regenerated figures:
    the KL term. The with-KL model must show in-between uncertainty in
    the data gap x in [0.6, 1.4]; the no-KL model collapses to a point
    estimate (reference Toy example.ipynb cells 19-24).
-2. ``fwht_crossover.png`` — FWHT-vs-dense-matmul crossover (delegates
-   to benchmarks/fwht_sweep.py --plot, the walsh_plot.py analogue).
+2. ``fwht_crossover.png`` — FWHT-vs-dense-matmul crossover (runs
+   benchmarks/fwht_sweep.py's sweep in this process, the walsh_plot.py
+   analogue; one process per card).
 3. ``reliability.png`` — pooled nominal-vs-empirical coverage on the
    yacht protocol, raw vs temperature-calibrated (the round-4/5
    calibration machinery made visible).
@@ -26,7 +27,6 @@ slot2 orange #eb6834) on a white surface; text/grid in neutral ink.
 """
 
 import os
-import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -39,11 +39,9 @@ def _maybe_force_cpu():
         import jax as _jax
 
         _jax.config.update("jax_platforms", "cpu")
-        return True
-    return False
 
 
-_FORCED_CPU = _maybe_force_cpu()
+_maybe_force_cpu()
 
 import argparse
 import json
@@ -161,18 +159,14 @@ def fig_toy_fan(quick=False):
 
 
 def fig_crossover(quick=False):
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from fwht_sweep import sweep
+
     out = os.path.join(FIGDIR, "fwht_crossover.png")
-    cmd = [
-        sys.executable,
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "fwht_sweep.py"),
-        "--plot", out,
-    ]
-    if _FORCED_CPU:
-        cmd.append("--cpu")
     if quick:
-        cmd += ["--iters", "20", "--sizes", "64", "256", "1024"]
-    subprocess.run(cmd, check=True)
+        sweep(512, 20, [64, 256, 1024], out)
+    else:
+        sweep(512, 100, [64, 128, 256, 512, 1024, 2048, 4096], out)
     print(json.dumps({"figure": out}))
 
 

@@ -1,18 +1,18 @@
-"""TPU numerics + speed of the three MXU precision modes vs the f64 oracle.
+"""Numerics + speed of the three ``fwht_kron`` precision modes vs the f64
+oracle.
 
-Round-3 measurement demanded by the round-2 VERDICT (missing #1): what
-does the MXU *actually* compute in each ``fwht_kron`` precision mode?
-
-For each D it reports, per mode ("default" = MXU rounds fp32 operands to
-bf16, "highest" = Precision.HIGHEST true-fp32 passes, "bf16" = explicit
-bf16 H factors):
+What do the matrix units *actually* compute in each precision mode? For
+each D it reports, per mode ("default" = backend default, TF32 operands
+on an NVIDIA GPU; "highest" = Precision.HIGHEST true fp32; "bf16" =
+bfloat16 operands):
 
 - max relative error of ``whvi_mul`` vs the float64 C++ oracle
   (``ops/cpu_oracle.whvi_mul_cpp``) on random diagonals/activations;
 - per-application time over a difference-timed on-device chain
-  (norm-preserving random-sign diagonals; see tpu_kernel_check.py for
-  why identity-valued chains cannot be trusted on this backend);
-- effective HBM GB/s and MXU TFLOP/s vs the v5e peaks.
+  (norm-preserving random-sign diagonals: an identity-valued chain can
+  be shortcut by the compiler and read above the roofline);
+- effective memory GB/s and matmul TFLOP/s, and their share of the
+  card's peaks (``utils.profiling.DEVICE_PEAKS``; null on the CPU).
 
 The reference bar: its CPU/CUDA kernels compute genuine fp32
 (/root/reference/src/fwht/cuda/fwht_cuda_kernel.cu:75-146 templates on
@@ -49,7 +49,7 @@ import numpy as np
 
 
 def chain_time(f, s1, u, s2, x, iters):
-    """Difference-timed seconds per application (see tpu_kernel_check)."""
+    """Difference-timed seconds per application over an on-device chain."""
 
     @functools.partial(jax.jit, static_argnames="n")
     def chained(x, n):
@@ -79,7 +79,7 @@ def main():
 
     from whvi_tpu.ops.cpu_oracle import whvi_mul_cpp
     from whvi_tpu.ops.hadamard import fwht_factors, fwht_kron
-    from whvi_tpu.utils.profiling import whvi_mul_flops, v5e_peak_flops
+    from whvi_tpu.utils.profiling import mfu, whvi_mul_flops
 
     def make_f(prec):
         def f(s1, u, s2, x):
@@ -126,9 +126,7 @@ def main():
                 "us_per_call": round(t * 1e6, 1),
                 "GBps": round(bytes_moved / t / 1e9, 1),
                 "TFLOPs": round(flops / t / 1e12, 1),
-                "mfu": round(
-                    flops / t / v5e_peak_flops(prec), 3
-                ) if backend == "tpu" else None,
+                "mfu": mfu(flops / t, jax.devices()[0], prec),
                 "factors": list(fwht_factors(D)),
             }
             print(json.dumps(row), flush=True)

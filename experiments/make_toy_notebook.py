@@ -23,7 +23,7 @@ def build() -> nbf.NotebookNode:
     cells.append(md(
 """# Walsh-Hadamard Variational Inference — toy example
 
-TPU-native reproduction of the reference notebook (`Toy example.ipynb`
+JAX reproduction of the reference notebook (`Toy example.ipynb`
 in ltdung/WHVI): a degree-8 polynomial target observed everywhere
 *except* a gap `x ∈ [0.6, 1.4]`, fit with
 
@@ -39,7 +39,7 @@ All compute is jitted; on CPU this notebook runs in a few minutes
 
     cells.append(code(
 """import jax
-jax.config.update("jax_platforms", "cpu")  # remote-TPU-safe; delete to use TPU
+jax.config.update("jax_platforms", "cpu")  # delete to run on the GPU
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,12 +1,12 @@
 """Large-D scaling experiment: WHVI MLP at D up to 8192+, MC-ELBO
 throughput across mesh layouts.
 
-BASELINE.json config: "Large-D scaling: WHVI MLP D=8192, 1024 MC ELBO
-samples sharded over multi-host pod with psum gradient reduction".
-On one chip this measures ELBO steps/s vs D and MC-sample count; on a
-mesh (or the 8-virtual-device CPU backend, --force-cpu-devices N) it
-runs the sharded step and reports samples/s scaling vs the 1-shard
-layout — the >=80% linear-scaling north star.
+BASELINE.json config: "Large-D scaling: WHVI MLP D=8192, MC ELBO
+samples sharded over devices with psum gradient reduction". On one card
+this measures ELBO steps/s vs D and MC-sample count; on a mesh of cards
+(or the 8-virtual-device CPU backend, --force-cpu-devices N) it runs
+the sharded step and reports samples/s scaling vs the 1-shard layout.
+The first output line names the device the numbers were taken on.
 
 Examples:
   python experiments/run_scaling.py --sizes 1024 4096 8192
@@ -37,6 +37,10 @@ import time
 import numpy as np
 
 
+def _round(v, nd):
+    return None if v is None else round(v, nd)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--sizes", type=int, nargs="*", default=[1024, 4096, 8192])
@@ -45,14 +49,6 @@ def main():
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--mesh", default=None, help="e.g. 2x4 (data x sample)")
     ap.add_argument("--force-cpu-devices", type=int, default=0)
-    ap.add_argument(
-        "--backend",
-        default="xla",
-        choices=("xla", "pallas"),
-        help="whvi_mul compute path: XLA Kronecker (default) or the "
-        "fused Pallas kernel — the END-TO-END comparison the chain "
-        "microbenchmarks can't give (docs/RESULTS.md round 2)",
-    )
     ap.add_argument(
         "--predict",
         action="store_true",
@@ -64,9 +60,9 @@ def main():
         "--precision",
         default="default",
         choices=("default", "highest", "bf16"),
-        help="MXU operand precision of the Kronecker FWHT path "
-        "(default = MXU rounds fp32 operands to bf16; highest = true "
-        "fp32 via Precision.HIGHEST, ~1/4 the MXU rate on v5e)",
+        help="operand precision of the Kronecker FWHT path "
+        "(default = TF32 operands on the GPU; highest = true fp32 via "
+        "Precision.HIGHEST; bf16 = bfloat16 operands)",
     )
     ap.add_argument(
         "--dtype",
@@ -74,17 +70,15 @@ def main():
         choices=("f32", "bf16"),
         help="parameter/activation dtype: bf16 halves HBM transport of "
         "the layer-to-layer and transform-to-transform activations "
-        "(MXU operands are bf16-rounded in default precision anyway; "
-        "accumulation stays fp32) — the lever for the HBM-bound "
+        "(accumulation stays fp32) — the lever for the memory-bound "
         "large-D regime",
     )
     ap.add_argument(
         "--repeats",
         type=int,
         default=1,
-        help="independent measured repeats per row (all reported; the "
-        "round-2 audit found single-sourced rows on this backend can't "
-        "be trusted)",
+        help="independent measured repeats per row (all reported, so "
+        "the spread is visible)",
     )
     args = ap.parse_args()
 
@@ -96,19 +90,29 @@ def main():
         jax.config.update("jax_platforms", "cpu")
 
     from whvi_tpu.models import WHVILinear, WHVIRegression, relu
-    from whvi_tpu.ops import set_fwht_precision, set_whvi_mul_backend
+    from whvi_tpu.ops import set_fwht_precision
     from whvi_tpu.parallel import make_mesh, make_sharded_train_step
     from whvi_tpu.train import Trainer, TrainConfig, decayed_adam
     from whvi_tpu.utils import (
         elbo_step_flops,
-        v5e_peak_flops,
+        enable_compile_cache,
+        mfu,
         whvi_mul_flops,
     )
 
-    set_whvi_mul_backend(args.backend)  # read at trace time
-    set_fwht_precision(args.precision)  # ditto
-    on_tpu = jax.default_backend() == "tpu"
-    peak = v5e_peak_flops(args.precision)
+    enable_compile_cache()
+    set_fwht_precision(args.precision)  # read at trace time
+    dev = jax.devices()[0]
+    print(
+        json.dumps(
+            {
+                "platform": dev.platform,
+                "device_kind": dev.device_kind,
+                "device_count": jax.device_count(),
+            }
+        ),
+        flush=True,
+    )
 
     for D in args.sizes:
         net = WHVIRegression(
@@ -154,8 +158,7 @@ def main():
             @partial(jax.jit, static_argnames="k")
             def pred_scan(key, k):
                 # k serving calls inside one compiled scan; the summed
-                # output forces completion on fetch (honest timing on
-                # remote backends)
+                # output forces completion on fetch
                 def body(carry, _):
                     key, acc = carry
                     key, sub = jax.random.split(key)
@@ -172,7 +175,7 @@ def main():
                 float(pred_scan(jax.random.PRNGKey(1), k))
                 return time.perf_counter() - t0
 
-            # forward-only MXU flops: 2 square layers, ONE fused product
+            # forward-only matmul flops: 2 square layers, ONE fused product
             # each (the merged-u LRT; see utils.profiling
             # whvi_layer_fwd_flops — the earlier 2-product count produced
             # an impossible >100%-MFU row, caught by this very audit)
@@ -198,9 +201,9 @@ def main():
                                 args.samples * args.batch / dt, 1
                             ),
                             "tflops": round(flops / dt / 1e12, 1),
-                            "mfu": round(flops / dt / peak, 3)
-                            if on_tpu
-                            else None,
+                            "mfu": _round(
+                                mfu(flops / dt, dev, args.precision), 3
+                            ),
                         }
                     ),
                     flush=True,
@@ -216,17 +219,16 @@ def main():
         xb, yb = shard_batch(X, y)
 
         # All steps of a measurement run inside ONE compiled lax.scan
-        # (step.scan), and the sync is a host fetch of the final loss —
-        # block_until_ready alone does not reliably block on remote
-        # backends. Difference timing (2N vs N) cancels the per-call
-        # dispatch/fetch latency.
+        # (step.scan), and the sync is a host fetch of the final loss.
+        # Difference timing (2N vs N) cancels the per-call dispatch/fetch
+        # latency.
         def run(k, state):
             t0 = time.perf_counter()
             state, metrics = step.scan(state, xb, yb, args.batch, 1.0, k)
             float(metrics["loss"])  # host sync
             return time.perf_counter() - t0, state
 
-        # fwd+bwd MXU flops of the 2 square LRT layers (the D->1 column
+        # fwd+bwd matmul flops of the 2 square LRT layers (the D->1 column
         # output layer is O(D), <1% -- see utils.profiling)
         flops = elbo_step_flops([D, D], args.batch, args.samples)
         _, state = run(args.steps, state)  # compile k
@@ -250,9 +252,7 @@ def main():
                             args.samples * args.batch / dt, 1
                         ),
                         "tflops": round(flops / dt / 1e12, 1),
-                        "mfu": round(flops / dt / peak, 3)
-                        if on_tpu
-                        else None,
+                        "mfu": _round(mfu(flops / dt, dev, args.precision), 3),
                     }
                 ),
                 flush=True,

@@ -106,4 +106,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from whvi_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -162,10 +162,11 @@ def main():
         "--prng",
         choices=["threefry", "rbg"],
         default="threefry",
-        help="PRNG implementation; 'rbg' = TPU hardware RNG, 1.85x "
-        "throughput with per-example noise (threefry's VPU cost "
-        "dominates the step; round-5). Different random streams than "
-        "threefry — results shift within split-to-split noise",
+        help="PRNG implementation; per-example noise makes random bit "
+        "generation a large share of the step, so the generator "
+        "matters for speed (not yet measured on the GPU). Different "
+        "random streams than threefry — results shift within "
+        "split-to-split noise",
     )
     ap.add_argument("--quiet", action="store_true")
     args = ap.parse_args()
@@ -251,4 +252,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from whvi_tpu.utils import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -201,3 +201,48 @@ def test_protocol_column_lrt_smoke():
     )
     out2 = evaluate_bayesian_regression(X, y, cfg2)
     assert out["rmse_mean"] != out2["rmse_mean"]
+
+
+def test_protocol_chunks_follow_epochs_per_call():
+    # each trainer log entry closes one scan chunk: phase 1 (2 epochs)
+    # is one chunk, phase 2 (7 epochs) splits into 3 + 3 + 1
+    X, y = _data()
+    logs = []
+    cfg = ProtocolConfig(
+        n_splits=2,
+        epochs1=2,
+        epochs2=7,
+        epochs_per_call=3,
+        hidden=(8,),
+        checkpoint_every=0,
+    )
+    evaluate_bayesian_regression(X, y, cfg, log_fn=logs.append)
+    assert [e["epoch"] for e in logs if "phase" in e] == [2, 5, 8, 9]
+
+
+@pytest.mark.parametrize("grid", [False, True])
+def test_large_stack_keeps_configured_chunk(grid, monkeypatch):
+    # 16 replicas x 7373 train rows x 2500-epoch chunks: the protocol
+    # hands epochs_per_call to the Trainer unchanged at any stack size
+    import whvi_tpu.evaluation as evaluation
+    import whvi_tpu.train as train
+
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(net, config, *args, **kwargs):
+        seen.append(config.epochs_per_call)
+        raise Stop
+
+    monkeypatch.setattr(evaluation, "Trainer", spy)
+    monkeypatch.setattr(train, "Trainer", spy)
+    X, y = _data(n=8192, d=8)
+    cfg = ProtocolConfig(n_splits=8 if grid else 16, epochs_per_call=2500)
+    with pytest.raises(Stop):
+        if grid:
+            evaluation.evaluate_config_grid(X, y, cfg, [{}, {"sigma0": 0.5}])
+        else:
+            evaluate_bayesian_regression(X, y, cfg)
+    assert seen == [2500]

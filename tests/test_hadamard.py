@@ -80,16 +80,17 @@ def test_fwht_matches_dense_oracle(D):
     )
 
 
+@pytest.mark.parametrize("mf", [2, 4, 8, 16, 32])
 @pytest.mark.parametrize("D", [64, 512])
-def test_fwht_kron_small_max_factor_multi_stage(D):
-    # Force >= 2 and >= 3 Kronecker factors to cover the multi-axis path.
+def test_fwht_kron_small_max_factor_multi_stage(D, mf):
+    # Force >= 2 and >= 3 Kronecker factors (down to all-H_2 factors at
+    # mf=2) to cover the multi-axis path.
     key = jax.random.PRNGKey(1)
     x = jax.random.normal(key, (3, D))
     oracle = x @ np.asarray(build_H(D))
-    for mf in (8, 16):
-        np.testing.assert_allclose(
-            np.asarray(fwht_kron(x, max_factor=mf)), oracle, rtol=1e-5, atol=1e-4
-        )
+    np.testing.assert_allclose(
+        np.asarray(fwht_kron(x, max_factor=mf)), oracle, rtol=1e-5, atol=1e-4
+    )
 
 
 def test_fwht_batch_dims():
@@ -178,19 +179,68 @@ def test_kl_normal_scalar():
     )
 
 
-def test_whvi_mul_matches_dense():
+@pytest.mark.parametrize("B", [1, 3, 100])
+@pytest.mark.parametrize("D", [8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096])
+def test_whvi_mul_matches_dense(D, B):
+    # Oracle: the dense-H product s1 * ((u * ((s2 * x) @ H)) @ H) in
+    # float64. u is scaled by 64/D so the output stays O(1) at every D.
     key = jax.random.PRNGKey(8)
-    D, B = 64, 9
     ks = jax.random.split(key, 4)
     s1 = jax.random.normal(ks[0], (D,)) * 0.1
     s2 = jax.random.normal(ks[1], (D,)) * 0.1
-    u = jax.random.normal(ks[2], (D,))
+    u = jax.random.normal(ks[2], (D,)) * (64.0 / D)
     x = jax.random.normal(ks[3], (B, D))
     got = whvi_mul(s1, u, s2, x)
-    oracle = whvi_mul_dense_oracle(s1, u, s2, x)
-    np.testing.assert_allclose(
-        np.asarray(got), np.asarray(oracle), rtol=1e-4, atol=1e-4
-    )
+    H = np.asarray(build_H(D), np.float64)
+    s1n, s2n, un, xn = (np.asarray(a, np.float64) for a in (s1, s2, u, x))
+    oracle = s1n * ((un * ((s2n * xn) @ H)) @ H)
+    np.testing.assert_allclose(np.asarray(got), oracle, rtol=1e-4, atol=1e-4)
+
+
+def _whvi_args(D, B, seed):
+    ks = jax.random.split(jax.random.PRNGKey(seed), 5)
+    return (
+        jax.random.normal(ks[0], (D,)) * 0.1,
+        jax.random.normal(ks[1], (D,)),
+        jax.random.normal(ks[2], (D,)) * 0.1,
+        jax.random.normal(ks[3], (B, D)),
+    ), jax.random.normal(ks[4], (B, D))
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_whvi_mul_vjp_matches_dense_oracle(D):
+    # The VJP of the transform product must equal the VJP of the
+    # materialized-W oracle for every argument, in true fp32.
+    args, g = _whvi_args(D, 5, seed=40)
+    with jax.default_matmul_precision("highest"):
+        got = jax.vjp(whvi_mul, *args)[1](g)
+        ref = jax.vjp(whvi_mul_dense_oracle, *args)[1](g)
+    for a, b in zip(got, ref):
+        scale = float(jnp.max(jnp.abs(b)))
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-5 * scale
+        )
+
+
+@pytest.mark.parametrize("D", [16, 256])
+def test_whvi_mul_loss_grad_matches_dense_oracle(D):
+    # A scalar loss through the product: gradients w.r.t. all four
+    # arguments agree with the dense oracle's, in true fp32.
+    args, target = _whvi_args(D, 7, seed=41)
+
+    def loss(f):
+        return lambda *a: jnp.sum(jnp.tanh(f(*a) - target) ** 2)
+
+    with jax.default_matmul_precision("highest"):
+        got = jax.grad(loss(whvi_mul), argnums=(0, 1, 2, 3))(*args)
+        ref = jax.grad(loss(whvi_mul_dense_oracle), argnums=(0, 1, 2, 3))(
+            *args
+        )
+    for a, b in zip(got, ref):
+        scale = float(jnp.max(jnp.abs(b)))
+        np.testing.assert_allclose(
+            np.asarray(a), np.asarray(b), rtol=1e-5, atol=1e-5 * scale
+        )
 
 
 def test_whvi_dense_is_not_diagonal():
@@ -272,7 +322,7 @@ def test_matmul_diag_helpers():
 
 def test_fwht_kron_bf16_precision_mode():
     # precision="bf16": H factors stored exact in bf16, activations round
-    # to bf16 at each MXU operand, fp32 accumulation — small relative
+    # to bf16 at each dot operand, fp32 accumulation — small relative
     # error, fp32 output dtype.
     from whvi_tpu.ops.hadamard import build_H, fwht_kron
 

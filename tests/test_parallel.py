@@ -2,7 +2,7 @@
 
 The reference has zero distributed tests (SURVEY.md section 4); this is
 the JAX fake-backend pattern it lacked: real meshes, real psum
-collectives, no TPU slice needed.
+collectives, no multi-card machine needed.
 """
 
 import numpy as np
@@ -296,51 +296,6 @@ def test_mesh_trainer_batch_not_divisible_by_data_shards():
     state = tr.init(jax.random.PRNGKey(1))
     state, logs = tr.fit(state, X, y)
     assert np.isfinite(logs[-1]["loss"])
-
-
-def test_sharded_pallas_backend_matches_single_device():
-    # The fused Pallas kernel must compose with shard_map: the sharded
-    # MC-ELBO and its gradients under WHVI_MUL_BACKEND=pallas (interpret
-    # mode on CPU) must equal the single-device estimator built with the
-    # SAME backend (isolates the mesh path; pallas-vs-xla numerics are
-    # covered in tests/test_fwht_pallas.py). Guards the check_vma
-    # fallback in parallel/mesh.py.
-    from whvi_tpu.ops import set_whvi_mul_backend
-
-    net = WHVIRegression(
-        [WHVILinear(8, 8, lambda_=1.0), relu, WHVILinear(8, 1)],
-        train_samples=4,
-        eval_samples=8,
-    )
-    rng = np.random.RandomState(7)
-    X = rng.randn(16, 8).astype(np.float32)
-    y = rng.randn(16, 1).astype(np.float32)
-    key = jax.random.PRNGKey(11)
-    S = 4
-    set_whvi_mul_backend("pallas")
-    try:
-        params = net.init(jax.random.PRNGKey(6))
-        mesh = make_mesh(data=2, sample=2)
-        loss_fn = sharded_loss_fn(net, mesh, n_samples=S)
-        val_s, g_sharded = jax.jit(
-            jax.value_and_grad(
-                lambda p: loss_fn(
-                    p, key, jnp.asarray(X), jnp.asarray(y), 16
-                )[0]
-            )
-        )(params)
-        val_r, g_ref = jax.value_and_grad(
-            lambda p: net.loss(
-                p, key, jnp.asarray(X), jnp.asarray(y), n=16, n_samples=S
-            )[0]
-        )(params)
-    finally:
-        set_whvi_mul_backend("auto")
-    np.testing.assert_allclose(float(val_s), float(val_r), rtol=2e-5)
-    for a, b in zip(jax.tree.leaves(g_sharded), jax.tree.leaves(g_ref)):
-        np.testing.assert_allclose(
-            np.asarray(a), np.asarray(b), rtol=5e-4, atol=1e-5
-        )
 
 
 def test_sharded_predict_raw_embeds_in_scan():

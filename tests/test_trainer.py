@@ -290,7 +290,7 @@ def test_checkpoint_every_zero_with_ckpt_dir(tmp_path):
 
 
 def test_trainer_runs_with_rbg_keys():
-    # the round-5 --prng rbg lever (TPU hardware RNG): the whole
+    # the round-5 --prng rbg lever: the whole
     # trainer pipeline — init, scanned epochs, per-example LRT noise,
     # eval — must work with typed rbg keys (no global config flip,
     # which would leak into other tests)

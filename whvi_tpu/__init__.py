@@ -1,10 +1,11 @@
-"""whvi_tpu — TPU-native Walsh-Hadamard Variational Inference.
+"""whvi_tpu — Walsh-Hadamard Variational Inference in JAX, for NVIDIA GPUs.
 
-A from-scratch JAX / XLA / Pallas framework with the capabilities of the
-reference PyTorch implementation (ltdung/WHVI), designed TPU-first:
-functional core over parameter pytrees, explicit PRNG keys, one jitted
-train step, mesh sharding for scale. See SURVEY.md for the reference
-structural analysis this build follows.
+A from-scratch JAX / XLA framework with the capabilities of the
+reference PyTorch implementation (ltdung/WHVI): functional core over
+parameter pytrees, explicit PRNG keys, one jitted train step, mesh
+sharding for scale. It runs on one or more NVIDIA H100 cards (and on
+the CPU for tests). See SURVEY.md for the reference structural analysis
+this build follows.
 """
 
 __version__ = "0.5.0"

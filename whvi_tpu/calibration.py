@@ -205,7 +205,7 @@ def fit_logit_temperature(
     calib): NLL-tau degenerates to the sharp grid edge (a tiny accurate
     calib set always rewards sharpening in-sample) and WORSENS test NLL
     0.124 -> 0.170, while ECE-tau picks an interior optimum
-    (`sweeps/r4_w1024_cal2.log`).
+    (round-4 digits run, docs/RESULTS.md).
 
     Grid-edge guard (round-4 VERDICT weak #3): an argmin on either end
     of the grid is not an optimum — it is the objective still improving

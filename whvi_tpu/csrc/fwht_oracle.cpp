@@ -3,7 +3,7 @@
 // Role-parity with the reference's libtorch C++ extension
 // (src/fwht/cpp/fwht.cpp:3-34, "only used for testing" per its
 // README.md:64): an independent, dependency-free implementation that the
-// Python test-suite compares the JAX/Pallas paths against. Unlike the
+// Python test-suite compares the JAX paths against. Unlike the
 // reference extension this operates on raw buffers (no framework types),
 // transforms along the last axis (matching the whvi_tpu convention), and
 // also provides the fused WHVI product so the structured-matrix algebra

@@ -1,6 +1,6 @@
 """Multi-chain execution: vmapped on one device, shard_mapped on a mesh.
 
-Chains are embarrassingly parallel — the TPU-native scaling move is to
+Chains are embarrassingly parallel — the natural scaling move is to
 partition the chain axis across EVERY axis of the training mesh (no
 collectives; each device runs ``n_chains / n_devices`` chains via the
 same vmapped sampler). The chain set is constructed identically in both
@@ -163,9 +163,8 @@ def run_chains(
                 )(q0, k)
 
         # jit the whole chain program: without it, vmap's batching
-        # interpreter dispatches every sampler primitive eagerly —
-        # harmless on CPU, catastrophic on remote TPU backends
-        # (~0.5-1 s per op).
+        # interpreter dispatches every sampler primitive eagerly, one
+        # host round trip per op.
         if mesh is None:
             jitted = jax.jit(local)
         else:

@@ -3,9 +3,9 @@
 Round-4 measured a hard sampler limitation: the tightly-trained
 (12000-epoch) mixed-lambda WHVI posterior defeats every linearly
 preconditioned sampler — identity, adapted-diagonal AND dense-metric
-NUTS all park at ESS ~ 2 (CPU and TPU, any precision, 3x warmup;
+NUTS all park at ESS ~ 2 (CPU and accelerator, any precision, 3x warmup;
 docs/RESULTS.md round 4) — and attributed it to mode structure the
-momentum cannot tunnel through. Parallel tempering is the standard test
+momentum cannot cross. Parallel tempering is the standard test
 of that hypothesis: K replicas ("rungs") sample the geometric path
 
     p_k(q)  ∝  exp(beta_k * logp(q)),      1 = beta_0 > ... > beta_{K-1}
@@ -18,7 +18,7 @@ so hot (small-beta, flattened) rungs cross barriers freely and feed
 decorrelated states down the ladder to the cold beta = 1 rung, whose
 draws are exact posterior samples.
 
-TPU-native shape: the K rungs advance as ONE vmapped HMC update per
+Accelerator shape: the K rungs advance as ONE vmapped HMC update per
 round (every rung is the same static program at a different traced
 ``beta``), swaps are a vectorized even/odd alternation (deterministic
 even-odd scheme — Okabe et al. 2001), and the whole (warmup + sampling)

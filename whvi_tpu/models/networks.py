@@ -8,8 +8,8 @@ Counterpart of reference ``WHVINetwork`` / ``WHVIRegression``
 - one forward pass is one MC sample; ``predict`` draws ``S`` samples via
   ``jax.vmap`` over split PRNG keys — replacing the reference's Python
   loop over samples (networks.py:47-51), which is the first thing that
-  must die on TPU (each loop iteration would be a separate compiled
-  region; vmap batches them onto the MXU);
+  must go on an accelerator (each loop iteration would be a separate
+  dispatch; vmap batches the samples into the matmuls);
 - ``loss`` is the negative ELBO: total-dataset MNLL estimate + summed KL
   (reference networks.py:56-69), with ``ignore_kl`` matching the
   reference's ablation switch.

@@ -1,6 +1,6 @@
 """Structured variational weight matrices (functional init/apply pairs).
 
-TPU-native counterparts of the reference's ``WHVISquarePow2Matrix``,
+Counterparts of the reference's ``WHVISquarePow2Matrix``,
 ``WHVIStackedMatrix`` and ``WHVIColumnMatrix`` (src/weights.py:13-251),
 redesigned as stateless objects over parameter pytrees:
 

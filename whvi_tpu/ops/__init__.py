@@ -13,7 +13,6 @@ from whvi_tpu.ops.hadamard import (
     set_fwht_precision,
 )
 from whvi_tpu.ops.whvi_op import (
-    set_whvi_mul_backend,
     whvi_dense,
     whvi_mul,
     whvi_mul_dense_oracle,
@@ -32,7 +31,6 @@ __all__ = [
     "matmul_diag_right",
     "next_pow_of_2",
     "set_fwht_precision",
-    "set_whvi_mul_backend",
     "whvi_dense",
     "whvi_mul",
     "whvi_mul_dense_oracle",

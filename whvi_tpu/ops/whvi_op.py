@@ -14,8 +14,8 @@ SURVEY.md section 0 bug 1), we apply it directly to activations:
 
 because ``W_bar(u)^T = S2 H diag(u) H S1`` and a row-vector product with a
 symmetric matrix is the last-axis vector transform. This is ``O(D log D)``
-(butterfly) / MXU-matmul (Kronecker) work, never touches a ``D x D``
-intermediate, and is the unit the fused Pallas kernel implements.
+(butterfly) / Kronecker-factor matmul work and never touches a ``D x D``
+intermediate.
 
 Broadcasting: ``s1, u, s2`` may carry leading axes that broadcast against
 ``x``'s leading axes. The stacked non-square matrix (reference
@@ -24,8 +24,6 @@ to ``x[..., None, :]`` — no Python loop over blocks.
 """
 
 from __future__ import annotations
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -36,92 +34,7 @@ __all__ = [
     "whvi_mul",
     "whvi_dense",
     "whvi_mul_dense_oracle",
-    "set_whvi_mul_backend",
 ]
-
-# "auto" (default): per-shape dispatch — the fused Pallas kernel exactly
-# where it measured >= XLA on the v5e (direct, non-vmapped single
-# products at the D's in _PALLAS_AUTO_SHAPES; 1.09x at D=4096,
-# sweeps/r3_tpu_queue1.log), XLA everywhere else. "xla": always the
-# Kronecker-factor MXU matmuls (fastest in every vmapped/e2e
-# configuration measured — the Pallas pipeline is DMA-bound on this
-# backend, docs/RESULTS.md rounds 2-3). "pallas": route every eligible
-# square product through the fused kernel (benchmarks; note vmapped
-# pallas_call compiles very slowly over remote backends).
-# The choice is read at TRACE time: set it before building jitted fns.
-_BACKEND = os.environ.get("WHVI_MUL_BACKEND", "auto")
-
-# The measured-win dispatch table for "auto": transform sizes where the
-# fused Pallas kernel beat XLA on a direct (non-vmapped) product.
-# Round-3 measured a 1.09x win at D=4096 (sweeps/r3_tpu_queue1.log),
-# but two independent round-4 re-measurements put the kernel at
-# 0.58-0.80x there (sweeps/r4_tpu_queue5.log: auto_dispatch_check AND
-# tpu_kernel_check, same session) — the niche does not reproduce, so
-# the table is pinned EMPTY ("auto" == XLA everywhere) until a shape
-# wins across sessions. The dispatch machinery (vmap guard, this
-# table, the A/B bench) stays so a future win is one entry away.
-_PALLAS_AUTO_SHAPES: frozenset = frozenset()
-
-
-def set_whvi_mul_backend(name: str) -> None:
-    """Select the whvi_mul compute path: "auto", "xla" or "pallas"."""
-    global _BACKEND
-    if name not in ("auto", "xla", "pallas"):
-        raise ValueError(
-            f"backend must be 'auto', 'xla' or 'pallas', got {name!r}"
-        )
-    _BACKEND = name
-
-
-def _any_batched(*arrays) -> bool:
-    """True if any operand is a vmap BatchTracer at trace time.
-
-    The Pallas niche was measured on DIRECT products; under vmap the
-    batched pallas_call is DMA-bound and compiles pathologically slowly
-    over remote backends (round-2 e2e: XLA 7.7x faster at D=4096 on the
-    full vmapped train step), so "auto" must never fire inside vmap.
-    """
-    try:  # public alias removed in newer jax
-        from jax._src.interpreters.batching import BatchTracer
-    except ImportError:
-        try:  # pragma: no cover - older jax
-            from jax.interpreters.batching import BatchTracer
-        except ImportError:  # pragma: no cover - future jax
-            # cannot introspect => FAIL SAFE: report batched so "auto"
-            # never risks routing a vmapped product through Pallas
-            return True
-
-    def _batched(a):
-        # walk nested tracers (e.g. a JVPTracer under grad-of-vmap
-        # wraps the BatchTracer in its .primal — round-4 review #3)
-        seen = 0
-        while isinstance(a, jax.core.Tracer) and seen < 8:
-            if isinstance(a, BatchTracer):
-                return True
-            nxt = getattr(a, "primal", None)
-            if nxt is None:
-                nxt = getattr(a, "val", None)
-            if nxt is None:
-                # an opaque tracer (e.g. DynamicJaxprTracer under jit):
-                # vmap-of-jit traces the jitted body with plain jaxpr
-                # tracers carrying NO batching evidence, so a tracer we
-                # cannot positively classify must be treated as batched
-                # (fail closed — round-4 review #5). Consequence: the
-                # "auto" Pallas dispatch can only fire on EAGER direct
-                # calls with concrete operands; a future measured-win
-                # shape inside jit needs an explicit opt-in mechanism,
-                # which is the right bar given the vmapped-Pallas cost.
-                return True
-            a = nxt
-            seen += 1
-        return isinstance(a, BatchTracer)
-
-    return any(_batched(a) for a in arrays)
-
-
-def _auto_uses_pallas(D: int, batched: bool, on_tpu: bool) -> bool:
-    """The "auto" dispatch rule (unit-tested as the pinned table)."""
-    return on_tpu and not batched and D in _PALLAS_AUTO_SHAPES
 
 
 def whvi_mul(
@@ -138,41 +51,7 @@ def whvi_mul(
       ``(..., D)`` (after broadcasting leading axes), same semantics as the
       reference's ``w_bar``-based products (src/weights.py:66-93) but with
       the paper-correct two-sided transform.
-
-    Backend selection (``set_whvi_mul_backend`` / ``WHVI_MUL_BACKEND``):
-    "auto" (default) routes through the fused Pallas kernel exactly on
-    the measured-win shapes (direct non-vmapped products, D in
-    ``_PALLAS_AUTO_SHAPES``, TPU backend) and XLA everywhere else;
-    "pallas" routes every eligible square product (plain ``(D,)``
-    diagonals, supported D) through the kernel; "xla" never dispatches
-    to Pallas.
     """
-    if _BACKEND != "xla" and jnp.ndim(s1) == 1 and jnp.ndim(u) == 1:
-        from whvi_tpu.ops.fwht_pallas import pallas_supported, whvi_mul_pallas
-
-        D = x.shape[-1]
-        eligible = (
-            jnp.ndim(s2) == 1 and x.ndim >= 1 and pallas_supported(D)
-        )
-        if eligible and _BACKEND == "auto":
-            # Short-circuit on the dispatch table BEFORE the batching
-            # probe: _any_batched walks private BatchTracer internals,
-            # so the hot default path must not pay its cost (or carry
-            # its jax-version fragility) when the table — currently
-            # pinned empty — makes the answer irrelevant (round-4
-            # advisor finding).
-            eligible = D in _PALLAS_AUTO_SHAPES and _auto_uses_pallas(
-                D,
-                batched=_any_batched(s1, u, s2, x),
-                on_tpu=jax.default_backend() == "tpu",
-            )
-        if eligible:
-            interpret = jax.default_backend() != "tpu"
-            batch = x.shape[:-1]
-            y = whvi_mul_pallas(
-                s1, u, s2, x.reshape(-1, D), interpret
-            )
-            return y.reshape(batch + (D,))
     return s1 * fwht(u * fwht(s2 * x))
 
 
@@ -183,7 +62,7 @@ def whvi_dense(
 
     Test oracle + the column-matrix path (reference src/weights.py:244-248
     needs the materialized matrix to reshape it into a column). ``s1, u,
-    s2`` may carry leading batch axes. ``precision`` is the MXU operand
+    s2`` may carry leading batch axes. ``precision`` is the operand
     mode of the single H @ (.) matmul (None = the module default of
     ops.hadamard; oracles should pass "highest").
     """
@@ -206,6 +85,10 @@ def whvi_dense(
 def whvi_mul_dense_oracle(
     s1: jax.Array, u: jax.Array, s2: jax.Array, x: jax.Array
 ) -> jax.Array:
-    """Oracle: ``x @ W_bar(u)^T`` via the dense matrix. Tests only."""
-    W = whvi_dense(s1, u, s2)
-    return jnp.einsum("...ij,...j->...i", W, x)
+    """Oracle: ``x @ W_bar(u)^T`` via the dense matrix, in full float32
+    whatever the module default (a GPU would otherwise run the products
+    in TF32). Tests only."""
+    W = whvi_dense(s1, u, s2, precision="highest")
+    return jnp.einsum(
+        "...ij,...j->...i", W, x, precision=jax.lax.Precision.HIGHEST
+    )

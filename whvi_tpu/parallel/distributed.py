@@ -1,18 +1,18 @@
 """Multi-host initialization helpers.
 
-One chip / one host needs nothing; on a multi-host TPU slice call
-:func:`init_distributed` once at program start (before any jax device
-query) and then build meshes exactly as on one host — the
-``(data, sample)`` mesh in ``parallel.mesh`` spans all hosts' devices
-and XLA routes the psum reductions over ICI within a slice and DCN
-across slices. No framework code changes are needed per host count
+One process driving the cards of one host needs nothing; with several
+processes (one per host, or one per card) call :func:`init_distributed`
+once at program start (before any jax device query) and then build
+meshes exactly as in one process — the ``(data, sample)`` mesh in
+``parallel.mesh`` spans every process's devices and XLA hands the psum
+reductions to NCCL. No framework code changes are needed per host count
 (SURVEY.md section 2.6: the reference has no distributed layer at all;
 here the same train step scales by re-sharding).
 
 Typical multi-host launch::
 
     from whvi_tpu.parallel import init_distributed, make_mesh
-    init_distributed()                   # reads TPU env on each host
+    init_distributed("localhost:12355", num_processes=2, process_id=rank)
     mesh = make_mesh(data=2, sample=jax.device_count() // 2)
 """
 
@@ -32,10 +32,11 @@ def init_distributed(
 ) -> None:
     """Initialize JAX's distributed runtime (idempotent).
 
-    With no arguments, autodetects from the TPU environment (the normal
-    path on Cloud TPU pods). Explicit arguments support manual
-    orchestration. Safe to call on single-process setups — it no-ops if
-    initialization fails because there is nothing to coordinate.
+    With no arguments JAX autodetects a cluster from its environment
+    (e.g. SLURM); a plain GPU host has none, so pass the coordinator's
+    address, the process count and this process's id. Safe to call on
+    single-process setups — it no-ops if initialization fails because
+    there is nothing to coordinate.
     """
     global _initialized
     if _initialized:

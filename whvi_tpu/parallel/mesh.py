@@ -2,19 +2,19 @@
 
 The reference is strictly single-process single-device (SURVEY.md section
 2.6: no torch.distributed anywhere; its only device boundary is the CUDA
-kernel launch). The TPU-native scaling axes for WHVI are:
+kernel launch). The scaling axes for WHVI are:
 
 - **MC samples** (the domain-specific axis): the ELBO averages S
   stochastic forward passes; samples are embarrassingly parallel up to
-  the final mean. We vmap samples per chip and shard the sample axis
+  the final mean. We vmap samples per device and shard the sample axis
   across the ``sample`` mesh axis.
 - **data batch**: classic DP across the ``data`` mesh axis.
 
-Parameters are replicated (per-layer D <= 8192 fits one chip easily —
+Parameters are replicated (per-layer D <= 8192 fits one device easily —
 a WHVI layer is O(D) parameters, that's the whole point). The partial
 MNLL is reduced with an explicit ``psum`` over both mesh axes inside
 ``shard_map``; gradient reduction falls out of AD through the psum
-(XLA emits the matching all-reduce over ICI).
+(XLA emits the matching all-reduce, which NCCL runs over NVLink).
 
 ``jax.distributed.initialize()`` + the same mesh code covers multi-host;
 nothing here is host-count-specific.
@@ -48,9 +48,9 @@ def make_mesh(
 ) -> Mesh:
     """Build a ``(data, sample)`` mesh over the available devices.
 
-    ``data * sample`` must equal the device count used. On a pod slice,
-    put the larger axis innermost (sample) so sample reductions ride the
-    fastest ICI links.
+    ``data * sample`` must equal the device count used. The cards of one
+    host are joined all to all, so the layout follows the algorithm
+    alone: ``sample`` shards the MC estimator, ``data`` the batch.
     """
     if devices is None:
         devices = jax.devices()
@@ -62,22 +62,6 @@ def make_mesh(
         )
     dev_array = np.asarray(devices[:n]).reshape(data, sample)
     return Mesh(dev_array, axis_names=("data", "sample"))
-
-
-def _check_vma() -> bool:
-    """Whether shard_map's varying-manual-axes checker can run.
-
-    The fused Pallas kernel's custom VJP reduces the diagonal cotangents
-    over the local batch inside an opaque bwd fn; the vma inference
-    cannot see that the shard_map transpose's boundary psum makes the
-    replicated-param cotangents invariant again, so the checker
-    false-positives. Gradient equality with the single-device path is
-    instead asserted directly (tests/test_parallel.py); the XLA default
-    keeps the checker on.
-    """
-    from whvi_tpu.ops import whvi_op
-
-    return whvi_op._BACKEND != "pallas"
 
 
 def sharded_loss_fn(
@@ -109,7 +93,6 @@ def sharded_loss_fn(
     per_example = any(
         getattr(l, "per_example_noise", False) for l in net.layers
     )
-    check_vma = _check_vma()
 
     def _fold_data_shard(keys):
         if not per_example or d_shards == 1:
@@ -132,7 +115,6 @@ def sharded_loss_fn(
         mesh=mesh,
         in_specs=(P(), P("sample"), P("data"), P("data"), P()),
         out_specs=P(),
-        check_vma=check_vma,
     )
 
     def _local_weighted(params, keys, x, y, n, w):
@@ -156,7 +138,6 @@ def sharded_loss_fn(
         mesh=mesh,
         in_specs=(P(), P("sample"), P("data"), P("data"), P(), P("data")),
         out_specs=P(),
-        check_vma=check_vma,
     )
 
     def loss_fn(params, key, x, y, n, kl_scale=1.0, weights=None):
@@ -211,7 +192,6 @@ def make_sharded_predict(net, mesh: Mesh, n_samples: int):
         mesh=mesh,
         in_specs=(P(), P("sample"), P("data")),
         out_specs=P("sample", "data"),
-        check_vma=_check_vma(),
     )
 
     def predict(params, key, x):
@@ -249,8 +229,8 @@ def make_sharded_train_step(
         hardcode phase 2; round-3 VERDICT weak #2). Its
         ``.scan(state, x, y, n, train_likelihood, k)`` attribute runs
         ``k`` steps inside one compiled ``lax.scan`` (one device
-        dispatch — essential for honest throughput measurement on
-        remote backends);
+        dispatch, so a throughput measurement times the device and not
+        the host loop);
       - ``shard_state(state)`` / ``shard_batch(x, y)`` — device_put
         helpers applying the matching shardings.
 
